@@ -17,20 +17,16 @@ src/goldpolish_targeted_bfs.cpp): for each target contig in a batch,
 The fill uses the native C++ path when available (the hot loop), falling
 back to the NumPy oracle.  Instead of the reference's /dev/shm BF files +
 FIFO handshakes, the result is returned in memory (and convertible to device
-words for the TPU editor).
+words for the device editor).
 """
 
 from __future__ import annotations
-
-import logging
 
 from dataclasses import dataclass
 
 import numpy as np
 
 from .ops import bloom
-
-log = logging.getLogger("goldpolish_tpu.bf_builder")
 
 # reference: src/goldpolish_targeted_bfs.cpp:45-53
 KMER_THRESHOLD_A = 4.66943
@@ -66,7 +62,12 @@ class BatchBFs:
 
 
 class BFBuilder:
-    """Builds per-batch multi-k Bloom filters from mapped reads."""
+    """Builds per-batch multi-k Bloom filters from mapped reads.
+
+    `device_fills` counts completed device builds across all instances
+    (device-work evidence for the chip smoke run)."""
+
+    device_fills = 0
 
     def __init__(self, target_index, mapped_index, all_mappings, k_values,
                  hash_num: int = bloom.DEFAULT_HASH_NUM,
@@ -185,9 +186,9 @@ class BFBuilder:
         a slight SUPERSET of the reference fill's (every host-promoted
         k-mer is device-promoted; a few extra k-mers near the threshold
         may join — drift quantified in tests/test_bf_builder_device.py).
-        Use on co-located chips (or overlapped with host polish) where the
-        fill competes for host cores; the host path stays the exactness
-        anchor.  Each read promotes with ITS TARGET's adaptive threshold,
+        Use where the fill competes for host cores (or overlapped with host
+        polish); the host path stays the exactness anchor.  A device
+        failure raises — it never turns into a host fill here.  Each read promotes with ITS TARGET's adaptive threshold,
         matching the host fill's per-target semantics (shared
         _choose_reads — read sets cannot desynchronize).
         GPTPU_SCATTER_FILL=1 selects the round-3 scatter build (kept as a
@@ -220,18 +221,11 @@ class BFBuilder:
             for rid in chosen:
                 reads.append(self.mapped_index.get_seq(rid))
                 thrs.append(kmer_threshold)
-        try:
-            bfs = bloom_sort.device_fill_bfs_sorted(
-                reads, thrs, self.k_values, self.hash_num, self.cbf_bytes,
-                bf_bytes,
-            )
-        except Exception:  # noqa: BLE001 — any device failure: host fill
-            log.warning(
-                "sorted device fill failed for batch of %d targets; "
-                "falling back to the host fill", len(target_ids),
-                exc_info=True,
-            )
-            return self.build_batch(target_ids)
+        bfs = bloom_sort.device_fill_bfs_sorted(
+            reads, thrs, self.k_values, self.hash_num, self.cbf_bytes,
+            bf_bytes,
+        )
+        BFBuilder.device_fills += 1
         return BatchBFs(self.k_values, [], bfs)
 
 
@@ -247,7 +241,7 @@ def device_fill_bfs(reads_by_thresh: dict[int, list[bytes]],
     counter reaches the per-k escalating threshold into the bit array.
     Reads are hashed in padded [B, L] buckets of at most chunk_elems
     window-hash elements per pass; buckets upload once and are reused by
-    both passes for every k.  Hashing uses the MXU conv formulation
+    both passes for every k.  Hashing uses the conv formulation
     (ops/scan_conv).  See build_batch_device for the (documented) superset
     deviation vs the host fill.
     """

@@ -1,7 +1,7 @@
 """goldpolish-tpu CLI — flag-compatible with the reference driver.
 
 Usage mirrors `goldpolish <draft.fa> <reads.fa|fq> <out.fa>` with the
-reference's flags (reference: scripts/goldpolish:72-196) plus TPU-framework
+reference's flags (reference: scripts/goldpolish:72-196) plus framework
 additions (--backend, --checkpoint, --no-sealer, --concurrency).
 
 Run as:  python -m goldpolish_tpu.cli draft.fa reads.fq polished.fa [...]
@@ -39,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     group.add_argument("--minimap2", action="store_true",
                        help="Run minimap2 for read mappings.")
     group.add_argument("--internal-map", action="store_true",
-                       help="Use the built-in TPU-native minimizer mapper.")
+                       help="Use the built-in minimizer mapper.")
     group.add_argument("--mappings", default="",
                        help="Pre-generated mappings (PAF, SAM, or ntLink TSV).")
     p.add_argument("--k-ntlink", type=int, default=88)
@@ -51,9 +51,13 @@ def build_parser() -> argparse.ArgumentParser:
     tg.add_argument("--bed", default="", help="BED targets (with --target)")
     tg.add_argument("--softmask", action="store_true",
                     help="Targets from softmasked regions (with --target)")
-    # TPU-framework additions
+    # framework additions
     p.add_argument("--backend", choices=["numpy", "jax", "hybrid"], default="numpy",
-                   help="Editor compute backend (jax = TPU device path)")
+                   help="Compute backend: numpy = host only; hybrid = GPU "
+                        "scan, fused phase A and Sealer BFS with the native "
+                        "host walk; jax = GPU scan, site eval and Sealer "
+                        "probes with the Python walk.  The GPU backends "
+                        "need a CUDA GPU (or JAX_PLATFORMS=cpu on purpose)")
     p.add_argument("--checkpoint", default="",
                    help="Checkpoint manifest path for preemption-safe resume")
     p.add_argument("--no-sealer", action="store_true",
@@ -64,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Fork-pool batch workers (host backend; scales "
                         "past the GIL like the reference's worker processes)")
     p.add_argument("--fill-overlap", action="store_true",
-                   help="Fast mode: the TPU claims Bloom-fill batches from "
+                   help="Fast mode: the GPU claims Bloom-fill batches from "
                         "the tail (sort-based build, slight-superset "
                         "filters) while the host fills from the front; "
                         "hybrid/jax backends only")

@@ -55,7 +55,7 @@ class PipelineConfig:
     bf_bytes: int = 512 * 1024
 
     # new-framework knobs (no reference equivalent)
-    backend: str = "numpy"  # "jax" on TPU hosts, "numpy" otherwise
+    backend: str = "numpy"  # "numpy" (host) | "hybrid" | "jax" (GPU paths)
     # fast-mode device Bloom build (jax backend only; slight-superset
     # filter — see BFBuilder.build_batch_device)
     device_bf_build: bool = False

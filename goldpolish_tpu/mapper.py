@@ -16,7 +16,7 @@ directly:
 
 The hash computation reuses the framework's ntHash kernels (native rolling
 loop on host; the all-window device hashing path can supply the hashes on
-TPU hosts).  Defaults follow ntLink's spirit (large w keeps sketches small
+accelerator hosts).  Defaults follow ntLink's spirit (large w keeps sketches small
 for long reads) but with the pipeline's own k.
 """
 

@@ -1,6 +1,7 @@
 """Native host library loader (ctypes bindings to gp_native.cpp).
 
-Compiled on first use with g++ (cached next to the source by content hash).
+Compiled on first use with g++ into a git-ignored .so next to the source,
+keyed by the source, the compiler flags and the host CPU (see build_key).
 Falls back gracefully: callers should catch NativeUnavailable and use the
 NumPy paths in ops/.
 """
@@ -25,22 +26,49 @@ class NativeUnavailable(RuntimeError):
     pass
 
 
+_CXXFLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-march=native",
+             "-fopenmp")
+
+
+def _host_cpu_id() -> str:
+    """Machine type + the CPU's feature flags: -march=native code built on
+    one CPU may not run on another, so both belong in the build key."""
+    import platform
+
+    flags = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    flags = " ".join(sorted(line.split(":", 1)[1].split()))
+                    break
+    except OSError:
+        pass
+    return f"{platform.machine()}|{flags}"
+
+
+def build_key(src: bytes, flags=_CXXFLAGS, cpu_id: str | None = None) -> str:
+    """Cache key of the .so: source, compiler flags and host CPU identity."""
+    h = hashlib.sha256(src)
+    h.update("\0".join(flags).encode())
+    h.update((cpu_id if cpu_id is not None else _host_cpu_id()).encode())
+    return h.hexdigest()[:16]
+
+
 def _build() -> str:
     with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        digest = build_key(f.read())
     so_path = os.path.join(_DIR, f"gp_native_{digest}.so")
     if os.path.exists(so_path):
         return so_path
-    cmd = [
-        "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-march=native",
-        "-fopenmp", _SRC, "-o", so_path + ".tmp",
-    ]
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    cmd = ["g++", *_CXXFLAGS, _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
     except (subprocess.CalledProcessError, FileNotFoundError, subprocess.TimeoutExpired) as e:
         err = getattr(e, "stderr", b"")
         raise NativeUnavailable(f"native build failed: {err!r}") from e
-    os.replace(so_path + ".tmp", so_path)
+    os.replace(tmp, so_path)
     return so_path
 
 

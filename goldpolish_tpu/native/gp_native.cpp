@@ -2,7 +2,7 @@
 //
 // The reference keeps its data-plane hot loops native (SeqIndex scan:
 // src/seqindex.cpp; Bloom fill: src/utils.cpp:96-123 with btllib ntHash);
-// this library provides the TPU framework's equivalents, exposed through a
+// this library provides the framework's host equivalents, exposed through a
 // plain C ABI consumed via ctypes (no pybind11 in the build environment).
 //
 // Everything here is a from-scratch implementation:

@@ -2,7 +2,7 @@
 
 The plain BF (512 KiB default) is the hot data structure of the whole
 pipeline: every candidate edit in the ntEdit scan and every BFS expansion in
-the Sealer gap fill is a membership probe.  On TPU the filter lives on-device
+the Sealer gap fill is a membership probe.  On the device the filter lives
 as a uint32 word array (little-endian view of the byte array, which preserves
 bit indexing — see ops/bloom.py) and probes are batched gathers + bit tests,
 replacing the reference's per-position pointer chasing
@@ -33,13 +33,20 @@ def probe_words(words: jnp.ndarray, bits: int, hashes: jnp.ndarray) -> jnp.ndarr
     hashes: uint64[..., hash_num].
     returns bool[...] — True where all hash_num bits are set.
     """
+    return bit_set(words, probe_index(hashes, bits)).all(axis=-1)
+
+
+def probe_index(hashes: jnp.ndarray, bits: int) -> jnp.ndarray:
+    """Bit index (uint32) of each hash in a `bits`-bit filter."""
     if bits & (bits - 1) == 0:
-        idx = (hashes & jnp.uint64(bits - 1)).astype(jnp.uint32)
-    else:
-        idx = (hashes % jnp.uint64(bits)).astype(jnp.uint32)
+        return (hashes & jnp.uint64(bits - 1)).astype(jnp.uint32)
+    return (hashes % jnp.uint64(bits)).astype(jnp.uint32)
+
+
+def bit_set(words: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """bool: is bit `idx` of the uint32 word array set (a gather)."""
     word = words[(idx >> jnp.uint32(5)).astype(jnp.int32)]
-    bit = (word >> (idx & jnp.uint32(31))) & jnp.uint32(1)
-    return (bit != 0).all(axis=-1)
+    return (word >> (idx & jnp.uint32(31))) & jnp.uint32(1) != 0
 
 
 def probe_kmers(words: jnp.ndarray, bits: int, hash_num: int, k: int, codes: jnp.ndarray) -> jnp.ndarray:

@@ -7,7 +7,7 @@ scheme used across the whole GoldPolish pipeline: Bloom filter construction
 (reference: subprojects/ntedit/ntedit.cpp:1441-1444) and Sealer/Konnector
 graph probes.
 
-Key structural fact exploited for the TPU path: the "srol" operation
+Key structural fact exploited for the device path: the "srol" operation
 (rol1 + swapbits033, reference nthash.hpp:66-97) is an *independent rotation*
 of the top 31 bits and the bottom 33 bits of the 64-bit state.  Because
 rotation distributes over XOR, the forward hash of window w
@@ -23,7 +23,7 @@ can be rewritten as
 hash r(w) = srol^{(-w) mod 1023}( Q[w+k-1] ^ Q[w-1] ) with
 Q = prefix-XOR of B[i] = srol^{i mod 1023}( rcseed(s[i]) ).  This turns the
 inherently sequential rolling recurrence into one parallel prefix scan plus
-elementwise variable rotations — the formulation used by the JAX/TPU kernels
+elementwise variable rotations — the formulation used by the JAX kernels
 (see nthash_jax.py).
 
 All functions operate on raw ASCII byte codes (uint8) so IUPAC codes,

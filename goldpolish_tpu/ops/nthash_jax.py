@@ -8,8 +8,8 @@ so XLA can fuse the whole hash computation into a handful of vector ops:
   * an associative XOR scan (log-depth),
   * windowed XOR + final rotation.
 
-Hashes are uint64 (XLA emulates 64-bit integer lanes with 32-bit pairs on
-TPU; everything here is bitwise/add so the emulation is cheap).  All
+Hashes are uint64 (everything here is bitwise/add, which 32-bit hardware
+lanes emulate cheaply).  All
 functions are shape-polymorphic over leading batch dimensions and jit-safe
 (static k/m only).
 

@@ -45,6 +45,7 @@ import jax.numpy as jnp
 
 from . import nthash as nt
 from . import nthash_jax as ntj
+from .bloom_jax import bit_set, probe_index
 from .siteeval import SiteTables
 
 T_SURVIVORS = 48  # max full-h insertion combos per site (overflow -> host).
@@ -150,22 +151,11 @@ def _roll(fh, rh, k: int, f_out, f_in, r_out, r_in):
     return fh2, (hi << jnp.uint64(33)) | lo
 
 
-def _probe_idx(hashes, bits: int):
-    if bits & (bits - 1) == 0:
-        return (hashes & jnp.uint64(bits - 1)).astype(jnp.uint32)
-    return (hashes % jnp.uint64(bits)).astype(jnp.uint32)
-
-
-def _bit(words, idx):
-    word = words[(idx >> jnp.uint32(5)).astype(jnp.int32)]
-    return (word >> (idx & jnp.uint32(31))) & jnp.uint32(1) != 0
-
-
 def _probe_full(words, bits: int, base, k: int, h: int):
     """Full multi-hash probe of canonical base hashes (any shape)."""
-    pres = _bit(words, _probe_idx(base, bits))
+    pres = bit_set(words, probe_index(base, bits))
     for i in range(1, h):
-        pres &= _bit(words, _probe_idx(ntj.nte64(base, k, i), bits))
+        pres &= bit_set(words, probe_index(ntj.nte64(base, k, i), bits))
     return pres
 
 
@@ -211,7 +201,7 @@ def _accepted_mask(codes):
 
 @functools.lru_cache(maxsize=32)
 def _fused_cached(key: tuple, bits: int, k: int, jump: int, max_ins: int,
-                  max_del: int, probe: str, interpret: bool):
+                  max_del: int):
     """Program cache: per-batch engines construct fresh FusedEval objects,
     and an uncached build would re-trace (and re-look-up) the large fused
     graph once per (batch, k) — measured at seconds per program."""
@@ -221,8 +211,7 @@ def _fused_cached(key: tuple, bits: int, k: int, jump: int, max_ins: int,
     )
     from .siteeval import make_tables
 
-    return build_fused(cfg, bits, make_tables(k, jump, max_ins, max_del),
-                       probe=probe, interpret=interpret)
+    return build_fused(cfg, bits, make_tables(k, jump, max_ins, max_del))
 
 
 @functools.lru_cache(maxsize=32)
@@ -232,15 +221,10 @@ def _fused_jitted(*args):
     return jax.jit(_fused_cached(*args))
 
 
-def build_fused(cfg: EvalConfig, bits: int, tables: SiteTables,
-                probe: str = "gather", interpret: bool = False):
-    """Returns the jitted fused program: (filt, codes[R, L]) -> outputs.
-
-    probe="gather": filt is the u32 words array (any filter size).
-    probe="mxu": filt is the int8 one-hot planes (power-of-two filters
-    <= ops/scan_conv.MXU_PROBE_MAX_BITS); every Bloom test rides the
-    bloom_pallas one-hot matmul (~2x the gather issue rate on a v5e), with
-    interpret=True for CPU-device tests.
+def build_fused(cfg: EvalConfig, bits: int, tables: SiteTables):
+    """Returns the fused program: (words, codes[R, L]) -> outputs, where
+    words is the filter's u32 word array (any filter size) and every Bloom
+    test is an XLA gather into it.
 
     Outputs (fixed shapes; S = cfg.s_max, C = tables.n_combos):
       packed   u8 [R, ceil(nw/8)]   presence bits
@@ -275,34 +259,18 @@ def build_fused(cfg: EvalConfig, bits: int, tables: SiteTables,
     fa = jnp.uint64(int(nt.SEED_TAB[ord("A")]))
     ra = jnp.uint64(int(nt.RC_SEED_TAB[ord("A")]))
 
-    if probe == "mxu":
-        from . import bloom_pallas
-        from .scan_conv import _multi_lo32
+    def probe_full(filt, base):
+        return _probe_full(filt, bits, base, k, h)
 
-        def probe_full(filt, base):
-            lo = _multi_lo32(base, k, h).reshape(-1, h)
-            return bloom_pallas.probe_lo32_mxu_i8(
-                filt, bits, lo, interpret=interpret
-            ).reshape(base.shape)
-
-        def probe_h1(filt, base):
-            lo = (base & jnp.uint64(0xFFFFFFFF)).astype(jnp.uint32)
-            return bloom_pallas.probe_lo32_mxu_i8(
-                filt, bits, lo.reshape(-1, 1), interpret=interpret
-            ).reshape(base.shape)
-    else:
-        def probe_full(filt, base):
-            return _probe_full(filt, bits, base, k, h)
-
-        def probe_h1(filt, base):
-            return _bit(filt, _probe_idx(base, bits))
+    def probe_h1(filt, base):
+        return bit_set(filt, probe_index(base, bits))
 
     def run(words, codes):
         R, L = codes.shape
         nw = L - k + 1
         from . import scan_conv
 
-        fh, rh = scan_conv.strand_hashes_conv(codes, k)  # [R, nw] u64
+        fh, rh = ntj.strand_hashes(codes, k)  # [R, nw] u64
         base = fh + rh
         present = probe_full(words, base)  # [R, nw]
 
@@ -525,19 +493,19 @@ def build_fused(cfg: EvalConfig, bits: int, tables: SiteTables,
 class FusedEval:
     """Host-side handle on the (process-cached) jitted fused program.
 
-    `filt` in __call__ is the words array (probe="gather") or the int8
-    one-hot planes (probe="mxu")."""
+    `calls` counts dispatches across all instances (device-work evidence
+    for the chip smoke run)."""
 
-    def __init__(self, cfg: EvalConfig, bits: int, tables: SiteTables,
-                 probe: str = "gather", interpret: bool = False):
+    calls = 0
+
+    def __init__(self, cfg: EvalConfig, bits: int, tables: SiteTables):
         self.cfg = cfg
         self.bits = bits
         self.tables = tables
-        self.probe = probe
-        args = (cfg.key(), bits, cfg.k, cfg.jump, cfg.max_ins, cfg.max_del,
-                probe, interpret)
+        args = (cfg.key(), bits, cfg.k, cfg.jump, cfg.max_ins, cfg.max_del)
         self.raw = _fused_cached(*args)
         self._run = _fused_jitted(*args)
 
-    def __call__(self, filt, codes):
-        return self._run(filt, codes)
+    def __call__(self, words, codes):
+        FusedEval.calls += 1
+        return self._run(words, codes)

@@ -1,7 +1,7 @@
 """Multi-host scale-out: process setup + contig sharding + ordered merge.
 
 The reference is strictly single-host (SURVEY §2.3: FIFOs + /dev/shm).
-The TPU framework scales across hosts of a pod slice with:
+The framework scales across hosts with:
 
  * jax.distributed.initialize() per host (ICI/DCN handled by the runtime),
  * deterministic contig-batch assignment: batch i -> host (i % num_hosts) —

@@ -2,7 +2,7 @@
 
 The reference's parallelism is process-level batch fan-out over one host
 (reference: scripts/goldpolish:43,527-533 — up to 200 worker processes over
-/dev/shm).  The TPU-native equivalent (SURVEY §2.3) is SPMD over a
+/dev/shm).  The accelerator-native equivalent (SURVEY §2.3) is SPMD over a
 jax.sharding.Mesh:
 
  * axis "dp"  — contig-batch data parallelism (the reference's batch axis),
@@ -15,8 +15,8 @@ jax.sharding.Mesh:
  * per-shard detection statistics merge with psum over both axes; polished
    output ordering is preserved by indexing (the reaper contract).
 
-Works identically on a virtual CPU mesh (tests / dry-run) and on real TPU
-slices; multi-host runs only need jax.distributed.initialize() before
+Works identically on a virtual CPU mesh (tests / dry-run) and on real
+multi-GPU hosts; multi-host runs only need jax.distributed.initialize() before
 make_mesh().
 """
 

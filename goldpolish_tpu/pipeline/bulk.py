@@ -11,7 +11,7 @@ goldpolish-make:62-72):
 
 run in-process: per batch, mapped reads are pulled through the SeqIndex,
 filled into per-batch multi-k Bloom filters (native host loop), and the
-chain executes with the TPU two-phase editor and the Konnector gap filler.
+chain executes with the two-phase editor and the Konnector gap filler.
 Batches run concurrently under an asyncio pool with a strictly ordered
 writer and a checkpoint manifest (pipeline.engine).
 """
@@ -227,7 +227,9 @@ def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
         sealed, seal_stats = sealer_mod.seal_records(
             prepped, bfs_by_k, scfg,
             # device-batched BFS probes on the jax backend (in-process
-            # only: fork-pool workers run host backends by construction)
+            # only: fork-pool workers run host backends by construction);
+            # hybrid keeps the host search, which beat DeviceBFS on a
+            # one-gap batch on the H100 (PERF.md, Sealer routing)
             backend="jax" if cfg.backend == "jax" else "numpy",
         )
         timing["sealer_s"] = round(_time.monotonic() - t0, 3)
@@ -247,16 +249,23 @@ def run_bulk(cfg: PipelineConfig) -> dict:
     """
     import time as _time
 
-    # static config error, not a per-batch condition: fail at startup with
-    # a clear message instead of per-batch fallback-warning spam (the
-    # device build packs k-mers against a KHALO-base row halo)
-    if (cfg.device_bf_build or cfg.fill_overlap) and any(
-        k > 33 for k in cfg.k_values
-    ):
-        raise ValueError(
-            f"device BF build supports k <= 33; got {cfg.k_values} — "
-            "disable device_bf_build/fill_overlap or drop the larger k"
-        )
+    # static config errors, not per-batch conditions: fail at startup with
+    # a clear message (the device build packs k-mers against a KHALO-base
+    # row halo; a device path must find its GPU)
+    if cfg.device_bf_build or cfg.fill_overlap:
+        from ..ops import bloom_sort
+
+        kmax = bloom_sort.KHALO + 1
+        if any(k > kmax for k in cfg.k_values):
+            raise ValueError(
+                f"device BF build supports k <= {kmax}; got {cfg.k_values} "
+                "— disable device_bf_build/fill_overlap or drop the larger k"
+            )
+    from ..utils.device import device_path_of, require_device
+
+    wanted = device_path_of(cfg)
+    if wanted:
+        require_device(wanted)
 
     t_start = _time.monotonic()
     ws = engine.Workspace(
@@ -286,7 +295,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
         if ckpt_dir:
             os.makedirs(ckpt_dir, exist_ok=True)
         totals = {"batches": len(all_batches), "contigs": 0, "bases_out": 0,
-                  "resumed_batches": 0}
+                  "resumed_batches": 0, "device_fill_errors": 0}
         t_setup = _time.monotonic() - t_start  # index + mapping + builder
         timing_sum: dict = {}
 
@@ -384,9 +393,17 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 # Claims are bounded: at most DEV_FILL_AHEAD unconsumed
                 # futures may be outstanding (filters are MBs per batch —
                 # an unbounded claimer would pin the whole tail resident),
-                # and ANY failure lands in the future (set_exception), so
-                # the consuming worker surfaces it instead of deadlocking.
+                # and ANY failure lands in the future (set_exception): it
+                # is logged and counted in totals["device_fill_errors"],
+                # and the consumer's host arm fills that batch.
                 DEV_FILL_AHEAD = 3
+
+                def _note_dev_failure(fut):
+                    e = fut.exception()
+                    if e is not None:
+                        with fill_lock:
+                            totals["device_fill_errors"] += 1
+                        log.error("device fill failed: %r", e, exc_info=e)
 
                 def _dev_fill_loop():
                     while True:
@@ -402,13 +419,14 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                                          in manifest.done)
                             ]
                             # leave the frontmost unfilled batch to the
-                            # host so polish never stalls on the chip
+                            # host so polish never stalls on the device
                             if len(todo) <= 1:
                                 return
                             p = todo[-1]
                             b = my_batches[p]
                             fut = _cf.Future()
                             fut._gp_dev = True  # consumers may hedge
+                            fut.add_done_callback(_note_dev_failure)
                             fill_started.add(b.index)
                             fill_futs[b.index] = fut
                         t0 = _time2.monotonic()
@@ -418,14 +436,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                             # the future (a claimed-but-unresolved future
                             # blocks its consumer forever)
                             ids = [h.split()[0] for h, _ in b.records]
-                            try:
-                                bfs = builder.build_batch_device(ids)
-                            except Exception:  # noqa: BLE001 — host fallback
-                                log.warning(
-                                    "device fill failed for batch %d; host "
-                                    "fill fallback", b.index, exc_info=True,
-                                )
-                                bfs = builder.build_batch(ids)
+                            bfs = builder.build_batch_device(ids)
                         except Exception as e:  # noqa: BLE001
                             fut.set_exception(e)
                             return
@@ -436,10 +447,10 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 )
                 dev_fill_thread.start()
                 # a hedged (lost) device fill still holding a jax call at
-                # interpreter teardown SIGABRTs the runtime; drain it at
+                # interpreter teardown can abort the runtime; drain it at
                 # exit (atexit handlers run before teardown, and this one
                 # — registered after jax's — runs first), NOT in run_bulk
-                # (which would stall the return behind a slow chip)
+                # (which would stall the return behind a slow device)
                 import atexit as _atexit
 
                 _atexit.register(dev_fill_thread.join, 300)
@@ -455,15 +466,17 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 return q
 
             def _hedged_result(fut, records):
-                """Consume a fill future; a DEVICE-claimed fill still in
-                flight when its consumer arrives gets a host-fill HEDGE —
-                first finisher wins (both results are valid filter sets;
-                the device's is the documented fast-mode superset).  The
-                r5 bench measured the overlap stream losing to fill=host
-                exactly because one slow device fill held its batch past
-                the host's headroom; the hedge caps that loss at one
-                host-fill time."""
-                if not getattr(fut, "_gp_dev", False) or fut.done():
+                """Consume a fill future; a DEVICE-claimed fill that is
+                still in flight (or failed) when its consumer arrives gets
+                a host-fill HEDGE — the first arm to SUCCEED wins (both
+                results are valid filter sets; the device's is the
+                documented fast-mode superset), so one slow device fill
+                costs at most one host-fill time.  A device failure is
+                logged and counted (_note_dev_failure) whichever arm wins;
+                the batch fails only when both arms fail."""
+                if not getattr(fut, "_gp_dev", False) or (
+                    fut.done() and fut.exception() is None
+                ):
                     return fut.result()
                 ids = [h.split()[0] for h, _ in records]
                 host_fut: _cf.Future = _cf.Future()
@@ -475,10 +488,16 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                         host_fut.set_exception(e)
 
                 _threading.Thread(target=run, daemon=True).start()
-                first, _rest = _cf.wait(
-                    {fut, host_fut}, return_when=_cf.FIRST_COMPLETED
-                )
-                return next(iter(first)).result()
+                pending = {fut, host_fut}
+                while True:
+                    done, pending = _cf.wait(
+                        pending, return_when=_cf.FIRST_COMPLETED
+                    )
+                    for f in done:
+                        if f.exception() is None:
+                            return f.result()
+                    if not pending:
+                        raise host_fut.exception()
 
             async def worker(batch: engine.Batch):
                 pos = pos_of[batch.index]

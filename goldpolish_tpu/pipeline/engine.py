@@ -13,7 +13,7 @@ goldpolish-autoclean) — with asyncio stages inside one process:
  * an ordered writer: results are emitted strictly in batch order whatever
    order they finish (the reaper's contract, goldpolish-reaper:51-73),
  * checkpoint/resume: a manifest records finished batch ids so a preempted
-   run (TPU pods are preemptible) can skip completed work — capability the
+   run (preemptible machines) can skip completed work — capability the
    reference lacks (SURVEY §5: restart = redo),
  * failure propagation: a failed batch cancels the run (watch_process
    semantics) and the workspace cleanup always runs (autocleaner semantics).

@@ -244,6 +244,11 @@ def run_targeted(cfg: PipelineConfig) -> dict:
     of INTERMEDIATE_* files, kept with --target_dev)."""
     import time as _time
 
+    from ..utils.device import device_path_of, require_device
+
+    wanted = device_path_of(cfg)
+    if wanted:
+        require_device(wanted)
     t_start = _time.monotonic()
     marks: list[tuple[str, float]] = []
 

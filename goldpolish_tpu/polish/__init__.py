@@ -1,8 +1,8 @@
-"""Polishing editors: the exact oracle and the two-phase TPU engine."""
+"""Polishing editors: the exact oracle and the two-phase device engine."""
 
 
 def polish_contig(seq: bytes, bf, cfg, backend: str = "numpy", bloomrep=None):
-    """Route to the right editor: the TPU engine for the standard modes,
+    """Route to the right editor: the two-phase engine for the standard modes,
     the exact oracle for SNV mode / secondary-BF runs (rare paths the
     batched engine doesn't accelerate)."""
     from . import ntedit_oracle

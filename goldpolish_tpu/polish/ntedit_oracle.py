@@ -19,7 +19,7 @@ observable semantics exactly:
  * IUPAC candidate tables and SNV/mask modes (reference :158-194, 1540-1556).
 
 This module is deliberately scalar and slow — it is the bit-exactness anchor
-the batched TPU engine (polish/ntedit_tpu.py) is tested against, and the
+the batched two-phase engine (polish/ntedit_tpu.py) is tested against, and the
 fallback editor for tiny inputs.
 """
 
@@ -284,7 +284,7 @@ def run_trials(cfg: Config, draft_char: int, provider, check_there: int = 0) -> 
       provider.ins_trial(ci, i) -> raw check_present
       provider.del_trial(d)     -> raw check_present
 
-    Shared verbatim between the scalar oracle editor and the TPU engine's
+    Shared verbatim between the scalar oracle editor and the two-phase engine's
     table replay, so both produce byte-identical decisions.
     """
     best = new_best()
@@ -855,7 +855,7 @@ class _Editor:
         Runs [detection -> trials -> edit -> roll] iterations from the given
         state.  With exit_check set, the loop yields control back ("clean")
         when exit_check(st) is true at the top of an iteration — used by the
-        TPU engine to bound dirty-zone segments.  Returns
+        two-phase engine to bound dirty-zone segments.  Returns
         (status, st, fh, rh, char_in) with status "end" (contig exhausted)
         or "clean" (exit_check fired).
         """
@@ -1037,7 +1037,7 @@ class _Editor:
                 char_in = _lower(draft_char)
         if et != 0 or cfg.mask:
             # watermark of the highest draft position whose content the edit
-            # may have touched (used by the TPU engine's segment-exit rule)
+            # may have touched (used by the two-phase engine's segment-exit rule)
             self.dirty_end = max(getattr(self, "dirty_end", -1), st["t"] + 1)
         return fh, rh, char_in
 

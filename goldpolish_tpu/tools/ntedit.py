@@ -44,6 +44,10 @@ def main(argv=None):
     p.add_argument("--processes", type=int, default=0,
                    help="fork-pool contig workers (host backends)")
     args = p.parse_args(argv)
+    if args.backend != "numpy":
+        from ..utils.device import require_device
+
+        require_device(f"--backend {args.backend}")
 
     bf = bloom.load_any(args.bf)
     secbf = bloom.load_any(args.secbf) if args.secbf else None

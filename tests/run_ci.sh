@@ -8,13 +8,14 @@
 #   tests/run_ci.sh fast       # same
 #   tests/run_ci.sh slow       # slow tier only (golden refscale, soaks): ~6 min
 #   tests/run_ci.sh full       # fast + slow (the whole suite)
-#   tests/run_ci.sh bench      # host-only bench artifact (no TPU grant taken)
+#   tests/run_ci.sh bench      # explicit host-only bench run (no GPU needed)
 #   tests/run_ci.sh all        # full suite, then host bench
 #
 # Exit code is the first failing stage's.  All stages run from the repo
 # root on the CPU backend (tests/conftest.py forces 8 virtual CPU jax
-# devices; the bench stage uses GPTPU_BENCH_BACKEND=numpy so CI never
-# waits on the exclusive TPU grant — on-TPU benching is the driver's job).
+# devices; the bench stage uses GPTPU_BENCH_BACKEND=numpy, an explicit
+# host-only run).  GPU runs: `python chip_smoke.py` and the card-only
+# tests, `GPTPU_TEST_GPU=1 python -m pytest -m gpu tests/` (README).
 
 set -u
 cd "$(dirname "$0")/.."

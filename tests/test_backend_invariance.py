@@ -1,4 +1,4 @@
-"""End-to-end backend-invariance golden (r2 VERDICT #7): the SAME
+"""End-to-end backend-invariance golden: the SAME
 reference-scale inputs must polish byte-identically across
 
   * backend="numpy" (the exactness anchor),

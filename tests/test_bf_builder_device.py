@@ -129,8 +129,7 @@ def test_device_build_per_target_thresholds():
 
 def _noisy_build(err_rate: float, seed: int = 11):
     """Host vs device build on reads carrying `err_rate` random
-    substitutions (the realistic regime VERDICT r2 asked to quantify:
-    error k-mers sit near the promotion threshold, where scatter-add
+    substitutions (the realistic regime: error k-mers sit near the promotion threshold, where scatter-add
     counting over-promotes)."""
     rng = np.random.default_rng(seed)
     n = 60000
@@ -173,7 +172,7 @@ def _noisy_build(err_rate: float, seed: int = 11):
 
 @pytest.mark.slow
 def test_device_build_drift_bound_realistic_error_rates():
-    """Committed drift bound (VERDICT r2 #9): at 0.25%-1% read error the
+    """Committed drift bound: at 0.25%-1% read error the
     device fast build stays a superset with bounded extra-bit drift.
 
     Why drift is possible at all: error k-mers occur 1-3 times, near the

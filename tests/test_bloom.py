@@ -94,6 +94,28 @@ def test_device_probe_matches_host():
     assert np.array_equal(got2, want)
 
 
+def test_lo32_equivalence():
+    """Probing with only the low 32 bits equals full-u64 probing when the
+    bit count is a power of two (h % 2^m only reads low bits), so the
+    mask probe may narrow indices to u32 (bloom_jax.probe_index)."""
+    import jax.numpy as jnp
+
+    from goldpolish_tpu.ops import bloom_jax
+
+    k, h = 32, 4
+    rng = np.random.default_rng(0)
+    seq = "".join(rng.choice(list("ACGT")) for _ in range(3000 + k))
+    bf = bloom.BloomFilter(bloom.DEFAULT_BF_BYTES, h, k)
+    hashes = _hashes_for(seq, k, h)
+    bf.insert(hashes[::2])
+    lo = (hashes & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    want = bf.contains(hashes)
+    got = np.asarray(bloom_jax.probe_words_jit(
+        jnp.asarray(bf.words_u32()), int(bf.bits), jnp.asarray(lo)
+    ))
+    assert np.array_equal(got, want)
+
+
 def test_device_build_matches_host():
     jnp_bloom = pytest.importorskip("goldpolish_tpu.ops.bloom_jax")
     import jax.numpy as jnp

@@ -284,15 +284,19 @@ def test_sorted_edge_cases():
 
 
 @pytest.mark.slow
-def test_sorted_default_chunking_at_production_size():
-    """Streams above DEFAULT_CHUNK_BASES (2^21) take the chunked path by
-    DEFAULT — the production regime (a 2 Mbp batch's read stream is
-    ~10 Mb).  Bits must equal an explicit single-dispatch build."""
+def test_sorted_default_chunking_at_production_size(monkeypatch):
+    """Streams above DEFAULT_CHUNK_BASES take the chunked path by DEFAULT
+    (chunk_bases=None).  The default is 2^25; it is patched to 2^23 here
+    so that the CPU can hold the single-dispatch build of a stream above
+    it (~10 Mb of reads).  Bits must equal an explicit single-dispatch
+    build."""
+    monkeypatch.delenv("GPTPU_SORT_CHUNK_BASES", raising=False)
+    monkeypatch.setattr(bloom_sort, "DEFAULT_CHUNK_BASES", 1 << 23)
     rng = np.random.default_rng(21)
     truth = np.frombuffer(b"ACGT", np.uint8)[
-        rng.integers(0, 4, 600_000)
+        rng.integers(0, 4, bloom_sort.DEFAULT_CHUNK_BASES // 4)
     ].tobytes()
-    reads = _reads_cov(truth, 5, frag=20_000)  # ~3 Mb stream
+    reads = _reads_cov(truth, 5, frag=20_000)  # > DEFAULT_CHUNK_BASES
     total = sum(len(r) for r in reads)
     assert total > bloom_sort.DEFAULT_CHUNK_BASES  # actually exercises it
     thrs = [5] * len(reads)

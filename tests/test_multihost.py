@@ -4,8 +4,7 @@ Launches two OS processes that jax.distributed.initialize against a local
 coordinator (CPU backend), each polishing its round-robin share of batches
 (parallel/distributed batch ownership); host 0's reaper merges the
 per-batch files strictly in order.  The merged output must be byte-identical
-to a plain single-host run — the cross-process path VERDICT round 1 flagged
-as unit-tested-only.
+to a plain single-host run, across real processes.
 """
 
 import os

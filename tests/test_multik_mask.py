@@ -83,7 +83,7 @@ def test_to_upper():
 
 
 def test_multik_chain_differential_vs_oracle():
-    """The full multi-k chain through the TPU engine must equal the same
+    """The full multi-k chain through the two-phase engine must equal the same
     chain driven by the exact oracle editor."""
     from goldpolish_tpu.polish import ntedit_oracle as ne
 

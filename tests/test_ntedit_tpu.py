@@ -1,4 +1,4 @@
-"""Differential testing: TPU two-phase engine vs the exact oracle editor.
+"""Differential testing: two-phase engine vs the exact oracle editor.
 
 The engine must produce byte-identical output and identical substitution
 records on adversarial inputs: clustered errors (inside one k-window),

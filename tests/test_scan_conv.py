@@ -1,4 +1,4 @@
-"""ops/scan_conv: MXU conv-hash + fused scan vs the scalar ntHash oracle."""
+"""ops/scan_conv: conv-hash + fused gather scan vs the scalar ntHash oracle."""
 
 import numpy as np
 import pytest
@@ -51,24 +51,38 @@ def _bf_with(codes, k, h, bf_bytes=1 << 16):
     return bf, bf.contains(hashes)
 
 
-@pytest.mark.parametrize("probe", ["gather", "mxu"])
-def test_device_scanner_parity(probe):
+def test_device_scanner_parity():
     k, h = 32, 4
     codes = _rand_codes(4000, seed=7)
     bf, want = _bf_with(codes, k, h)
-    if probe == "mxu":
-        from jax.experimental.pallas import tpu as pltpu
-
-        ctx = pltpu.force_tpu_interpret_mode()
-    else:
-        import contextlib
-
-        ctx = contextlib.nullcontext()
-    with ctx:
-        scanner = sc.DeviceScanner(bf, force_probe=probe)
-        packed = np.asarray(scanner.scan_packed(codes, k))
+    scanner = sc.DeviceScanner(bf)
+    packed = np.asarray(scanner.scan_packed(codes, k))
     pres = scanner.unpack_present(packed[0], len(codes) - k + 1)
     assert np.array_equal(pres, want)
+
+
+def test_device_scanner_non_pow2_filter():
+    """A filter whose bit count is not a power of two indexes with the
+    full u64 hash % bits (the low 32 bits alone are not enough), through
+    both the raw and the 2-bit packed transfer."""
+    from goldpolish_tpu import native
+
+    k, h = 32, 4
+    codes = _rand_codes(5000, seed=19)
+    bf, want = _bf_with(codes, k, h, bf_bytes=3 * 1000 + 4)
+    assert int(bf.bits) & (int(bf.bits) - 1)
+    scanner = sc.DeviceScanner(bf)
+    got = scanner.unpack_present(np.asarray(scanner.scan_packed(codes, k))[0],
+                                 len(codes) - k + 1)
+    assert np.array_equal(got, want)
+    packed, pos, byt = native.pack2(codes, 64)
+    exc_idx = np.full((1, 64), len(codes), np.int64)
+    exc_byte = np.zeros((1, 64), np.uint8)
+    exc_idx[0, : len(pos)] = pos
+    exc_byte[0, : len(byt)] = byt
+    out = scanner.scan_packed2(packed[None], exc_idx, exc_byte, k, len(codes))
+    assert np.array_equal(scanner.unpack_present(np.asarray(out)[0],
+                                                 len(codes) - k + 1), want)
 
 
 def test_scanpipe_multi_chunk_stitching():
@@ -78,7 +92,7 @@ def test_scanpipe_multi_chunk_stitching():
     k, h = 32, 3
     codes = _rand_codes(5000, seed=11)
     bf, want = _bf_with(codes, k, h)
-    scanner = sc.DeviceScanner(bf, force_probe="gather")
+    scanner = sc.DeviceScanner(bf)
     pipe = ScanPipe(scanner, k, row_windows=700, rows=2, depth=2)
     jobs = [(0, codes), (1, codes[:10]), (2, codes[100:2100])]
     got = dict(pipe.run(jobs))
@@ -131,7 +145,7 @@ def test_pipelined_polish_many_matches_numpy():
 def test_packed2_scan_parity_full_alphabet():
     """The 2-bit packed-transfer scan (gp_pack2 + exception scatter) is
     bit-identical to the raw scan for sequences with lowercase, IUPAC and N
-    bytes, in both probe modes."""
+    bytes."""
     from goldpolish_tpu import native
 
     try:
@@ -155,7 +169,7 @@ def test_packed2_scan_parity_full_alphabet():
     exc_byte = np.zeros((1, E), np.uint8)
     exc_idx[0, : len(pos)] = pos
     exc_byte[0, : len(byt)] = byt
-    scanner = sc.DeviceScanner(bf, force_probe="gather")
+    scanner = sc.DeviceScanner(bf)
     out = np.asarray(scanner.scan_packed2(
         packed[None], exc_idx, exc_byte, k, len(codes)
     ))
@@ -175,7 +189,7 @@ def test_scanpipe_packed_transfer_matches_raw():
     codes[500] = ord("N")
     codes[1500] = ord("y")
     bf, want = _bf_with(codes, k, h)
-    scanner = sc.DeviceScanner(bf, force_probe="gather")
+    scanner = sc.DeviceScanner(bf)
     pipe = ScanPipe(scanner, k, row_windows=900, rows=2)
     got = dict(pipe.run([(0, codes)]))
     assert np.array_equal(got[0], want)
@@ -233,20 +247,17 @@ def test_pipelined_polish_many_shape_fuzz():
         os.environ.pop("GPTPU_FORCE_DEVICE_SCAN", None)
 
 
-@pytest.mark.parametrize("probe", ["gather", "mxu"])
-def test_device_scanner_mesh_shards_both_probes(probe):
-    """With >1 device the scan rows shard over the dp mesh for BOTH probe
-    kinds (the MXU probe previously silently ran single-device on real
-    multi-chip slices — VERDICT r02 weak #3)."""
+def test_device_scanner_mesh_shards_both_transfers():
+    """With >1 device the scan rows shard over the dp mesh, for the raw
+    and the 2-bit packed transfer alike."""
     k, h = 32, 4
     n_dev = len(jax.devices())
     if n_dev < 2:
         pytest.skip("needs a multi-device mesh (conftest provides 8 CPUs)")
     codes = _rand_codes(6000, seed=17)
     bf, want = _bf_with(codes, k, h)
-    scanner = sc.DeviceScanner(bf, force_probe=probe)
-    assert scanner._mesh is not None, "mesh must exist for every probe kind"
-    assert scanner.probe == probe
+    scanner = sc.DeviceScanner(bf)
+    assert scanner._mesh is not None, "mesh must exist on >1 device"
     # B rows divisible by the device count -> no pad slice, sharding visible
     rows = np.zeros((n_dev, 6000), np.uint8)
     rows[:] = codes

@@ -1,6 +1,5 @@
-"""DeviceBFS microbench: on-chip per-level cost + dispatch count (VERDICT
-r4 #6 — re-adjudicate the device sealer BFS with the shadow-set kernel,
-free of the retracted r3 scatter lore).
+"""DeviceBFS microbench: per-level device cost + dispatch count of the
+device sealer BFS (shadow-set kernel) against the host search.
 
 Scenario: a truth genome's BF (well-populated de Bruijn graph), N gap
 searches shaped like the sealer's (start/goal anchors k bases apart on
@@ -15,7 +14,7 @@ the truth, depth budget = gap length + slack, both directions).  Measures
 and prints one line per arm.  The device kernel runs ONE dispatch per
 width tier per batch (lax.while_loop over levels) by construction; run
 with JAX_PLATFORMS=cpu + 8 virtual devices to sanity-check dispatch
-behavior off-chip, or on the real chip for the numbers.
+behavior on the CPU, or on the GPU for the numbers.
 
 Run: python tools/dbg_bfs_micro.py [n_gaps] [gap_len]
 """
@@ -99,9 +98,9 @@ def main():
         f"(paths found {n_found}/{n_gaps})", flush=True,
     )
 
-    import jax
+    from goldpolish_tpu.utils.device import require_device
 
-    platform = jax.devices()[0].platform
+    platform = require_device("tools/dbg_bfs_micro.py")
     dev = dbg_bfs.DeviceBFS(bf, k)
     t0 = time.perf_counter()
     out = dev.run(searches)

@@ -1,15 +1,15 @@
-"""On-chip site-eval microbenchmark: what can the device deliver for the
-fused phase-A offload (VERDICT r2 #1)?
+"""Device site-eval microbenchmark: what can the device deliver for the
+fused phase-A offload?
 
-Measures, on the real chip (min-of-reps, fresh inputs per rep to dodge the
+Measures on the GPU (min-of-reps, fresh inputs per rep to dodge the
 jax result-cache artifact):
   * gather-probe rate: [N, h] random u32 indices into a words array of the
-    bench's two filter sizes (1 MiB MXU-eligible, 4 MiB gather-only),
+    bench's two filter sizes (1 MiB and 4 MiB),
   * eval_sites_jax (existing device eval, full C=341) sites/s at S=256,
   * native host eval_sites sites/s on the same sites (1 core),
   * the fused scan+eval candidate: scan_present + hot-site detect on device.
 
-Decides whether the fused scan+eval path can beat 2 host cores' walks.
+Decides whether the fused scan+eval path can beat the host cores' walks.
 """
 
 import os
@@ -37,6 +37,10 @@ def t_min(fn, reps=5):
 def main():
     import jax
     import jax.numpy as jnp
+
+    from goldpolish_tpu.utils.device import require_device
+
+    require_device("tools/eval_micro.py")
 
     import bench
     from goldpolish_tpu import native

@@ -19,6 +19,9 @@ def main():
     import jax.numpy as jnp
 
     from goldpolish_tpu.ops import bloom_jax, nthash_jax, scan_conv
+    from goldpolish_tpu.utils.device import require_device
+
+    require_device("tools/fill_micro.py")
 
     rng = np.random.default_rng(0)
     n_bases = int(os.environ.get("FILL_BASES", 10_000_000))

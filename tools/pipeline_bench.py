@@ -23,7 +23,14 @@ import numpy as np  # noqa: E402
 
 
 def generate(workspace: str, n_contigs: int, clen: int, seed: int = 0,
-             frag: int = 20000, step: int = 10000, passes: int = 5):
+             frag: int = 20000, step: int = 10000, passes: int = 5,
+             gap_len: int = 0):
+    """Truth contigs, a mutated draft, tiled reads and their PAF.
+
+    Errors every 400 bp cycle substitution / deletion / insertion; with
+    gap_len > 0 each contig also gets one lowercase `n` gap of that length
+    at its middle (the tests/refscale.py:_mutate shape) for the Sealer.
+    Returns (truths, draft_path, reads_path, paf_path, n_errors)."""
     rng = np.random.default_rng(seed)
     os.makedirs(workspace, exist_ok=True)
     truths = []
@@ -49,6 +56,9 @@ def generate(workspace: str, n_contigs: int, clen: int, seed: int = 0,
                 else:
                     d[p] = "T" + d[p]
                 n_err += 1
+            if gap_len:
+                mid = clen // 2
+                d[mid : mid + gap_len] = ["n"] * gap_len
             ds = "".join(d)
             df.write(f">c{ci}\n{ds}\n")
             # staggered tiling: each pass shifts its read starts so no

@@ -35,6 +35,9 @@ def main():
     import jax.numpy as jnp
 
     from goldpolish_tpu.ops import bloom_jax, nthash_jax as ntj
+    from goldpolish_tpu.utils.device import require_device
+
+    require_device("tools/probe_micro.py")
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 8 << 20
     k, h = 32, 4

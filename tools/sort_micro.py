@@ -1,5 +1,5 @@
-"""TPU sort/scan/scatter micro-benchmark — grounds the sort-based device
-Bloom fill design (round-4 VERDICT #1).
+"""Device sort/scan/scatter micro-benchmark — the primitives of the
+sort-based device Bloom fill (ops/bloom_sort).
 
 Measures steady-state device wall (block_until_ready, fresh inputs per rep
 — the jax result-buffer caching artifact makes same-input timing report
@@ -12,7 +12,7 @@ Measures steady-state device wall (block_until_ready, fresh inputs per rep
   * gather 10M from 10M (permutation apply)
   * scatter-add 10M into 10M i32 (the wall the redesign removes)
 
-Usage: python tools/sort_micro.py  (runs on whatever jax.devices()[0] is)
+Usage: python tools/sort_micro.py  (needs a GPU, or JAX_PLATFORMS=cpu)
 """
 
 import os
@@ -43,6 +43,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from goldpolish_tpu.utils.device import require_device
+
+    require_device("tools/sort_micro.py")
     dev = jax.devices()[0]
     print(f"# device: {dev.platform} {getattr(dev, 'device_kind', '?')}")
     rng = np.random.default_rng(0)
